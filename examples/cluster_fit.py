@@ -2,8 +2,8 @@
 
 The cluster likelihood marginalizes every member over (primary EEP,
 secondary EEP) with power-law mass/mass-ratio priors and a binary-fraction
-photometric mixture (reference isochrones/cluster.py) — on TPU this runs
-as the fused pallas kernel in ops/cluster_pallas.py.
+photometric mixture (reference isochrones/cluster.py) — on a GPU this runs
+as the fused Pallas kernel in ops/cluster_pallas.py.
 
 Run from the repo root:  python examples/cluster_fit.py [--platform cpu]
 """
@@ -18,7 +18,7 @@ parser = argparse.ArgumentParser()
 parser.add_argument("--platform", default=None)
 parser.add_argument("--n-stars", type=int, default=30)
 parser.add_argument("--nested", action="store_true",
-                    help="full nested-sampling fit with evidence (TPU-scale; "
+                    help="full nested-sampling fit with evidence (accelerator-scale; "
                     "the default ensemble-MCMC budget suits a CPU demo)")
 parser.add_argument("--n-live", type=int, default=300)
 args = parser.parse_args()

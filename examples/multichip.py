@@ -1,7 +1,7 @@
-"""Multi-chip scaling: every fit engine over a `jax.sharding.Mesh`.
+"""Multi-device scaling: every fit engine over a `jax.sharding.Mesh`.
 
-Run from the repo root (8 virtual CPU devices stand in for an 8-chip slice;
-on a real pod slice pass --no-virtual and the same code shards over ICI):
+Run from the repo root (8 virtual CPU devices stand in for 8 cards; on a
+multi-GPU host pass --no-virtual and the same code shards over the cards):
 
     python examples/multichip.py            # 8 virtual CPU devices
     python examples/multichip.py --devices 4

@@ -1,13 +1,14 @@
-"""NUTS wall-clock decomposition (VERDICT r4 ask #5: explain or shrink the
-87 s warm NUTS fit vs 19 s nested / 46 s ensemble on the same posterior).
+"""NUTS wall-clock decomposition: why a warm NUTS fit takes longer than
+nested sampling or the ensemble on the same posterior.
 
-Runs the bench-15 binary-star fit at several (n_chains, n_warmup,
-n_samples) configurations on the real chip and prints seconds per config +
-the per-transition cost, separating the two candidate explanations:
+Runs bench.py's binary-star fit at several (n_chains, n_warmup,
+n_samples) configurations on the accelerator and prints seconds per
+config + the per-transition cost, separating the two candidate
+explanations:
 
-* underfill — 16 chains put only 16 points per leapfrog dispatch where the
-  chip's lnpost kernel saturates near ~4k-point batches; more chains are
-  near-free until then;
+* underfill — 16 chains put only 16 points per leapfrog dispatch, far
+  below the batch at which the lnpost kernel fills the device; more
+  chains are near-free until then;
 * sequential depth — warmup+sampling transitions x lockstep tree depth is
   the irreducible serial axis; fewer, fatter transitions win.
 
@@ -19,16 +20,14 @@ import time
 
 import numpy as np
 
-import jax
-
 from isochrones_tpu import get_ichrone
 from isochrones_tpu.config import enable_compile_cache
+from isochrones_tpu.device import on_accelerator
 from isochrones_tpu.starmodel import BinaryStarModel
 
 
 def build_model():
-    on_tpu = jax.default_backend() == "tpu"
-    dtype = np.float32 if on_tpu else np.float64
+    dtype = np.float32 if on_accelerator() else np.float64
     iso = get_ichrone("synthetic", n_feh=15, n_mass=196, n_eep=1710, n_age=107, dtype=dtype)
     pars = [350.0, 9.0, 0.0, 200.0, 0.1]
     bands = ["J", "H", "K", "G"]

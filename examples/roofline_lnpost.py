@@ -1,8 +1,6 @@
-"""Roofline + decomposition profile of the fused binary lnpost hot path.
+"""Decomposition profile of the fused binary lnpost hot path.
 
-Feeds the "Fused-lnpost roofline" section of docs/tpu_design_notes.md
-(VERDICT r4 ask #4: prove or break the ~3.0M evals/s plateau). Run ON THE
-REAL CHIP:
+Run on the accelerator:
 
     python examples/roofline_lnpost.py                         # row-gather (default)
     ISOTPU_INTERP_BLOCK=1 python examples/roofline_lnpost.py   # block-gather probe
@@ -18,9 +16,9 @@ binary model, 4 bands + Teff/logg spectroscopy + parallax):
 5. BC-grid 4-d interp alone at the same (B, 2, 4) fan-out, 4 bands
 6. cell location alone (find_cells_1d for all axes; no gathers)
 
-and prints the analytic gather-byte / transcendental counts per eval with
-the implied fraction of v5e peak HBM bandwidth (819 GB/s) — the evidence
-for WHICH resource the kernel is actually bound by.
+and prints the analytic gather-byte / transcendental counts per eval and
+the achieved gather bandwidth. No device peak is assumed here: a roofline
+share needs the peak table that comes with the benchmark.
 """
 
 import json
@@ -34,10 +32,9 @@ import jax.numpy as jnp
 
 from isochrones_tpu import get_ichrone
 from isochrones_tpu.config import enable_compile_cache
+from isochrones_tpu.device import on_accelerator
 from isochrones_tpu.ops.interp import find_cells_1d, interp_nd
 from isochrones_tpu.starmodel import BinaryStarModel
-
-V5E_HBM_GBPS = 819.0  # v5e peak HBM bandwidth
 
 
 def timeit(fn, n_rep=20):
@@ -56,10 +53,11 @@ def timeit(fn, n_rep=20):
 
 def main():
     enable_compile_cache()
-    on_tpu = jax.default_backend() == "tpu"
-    dtype = np.float32 if on_tpu else np.float64
-    B = 1 << 17 if on_tpu else 1 << 13
+    accel = on_accelerator()
+    dtype = np.float32 if accel else np.float64
+    B = 1 << 17 if accel else 1 << 13
     rows = {"backend": jax.default_backend(),
+            "device_kind": jax.devices()[0].device_kind,
             "interp_block": os.environ.get("ISOTPU_INTERP_BLOCK", "(default)"),
             "batch": B}
 
@@ -141,7 +139,6 @@ def main():
     rate = rows["lnpost_evals_per_s"]
     gbps = rate * bytes_per_eval / 1e9
     rows["achieved_gather_GBps"] = round(gbps, 2)
-    rows["fraction_of_hbm_peak"] = round(gbps / V5E_HBM_GBPS, 4)
     # transcendentals: ~2x4 exp (flux) + 4 log10 (mag sum) + 1 log10 (dist)
     # + ~7 log/exp in lnprob/priors ~ 20/eval
     rows["transcendentals_per_eval_approx"] = 20

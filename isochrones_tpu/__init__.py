@@ -1,4 +1,4 @@
-"""isochrones-tpu: TPU-native stellar model-grid interpolation and Bayesian
+"""isochrones-tpu: accelerator-native stellar model-grid interpolation and Bayesian
 star-parameter inference.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of

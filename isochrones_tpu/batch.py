@@ -2,11 +2,11 @@
 
 The reference scales fleets of independent single-star fits with SLURM job
 arrays (``scripts/batch_starfit``) because each MultiNest fit is a serial
-process. On TPU the natural axis of scale is the batch: this module stacks a
+process. On an accelerator the natural axis of scale is the batch: this module stacks a
 catalog's observations along a star axis and runs ONE jitted ensemble-MCMC
 program over ``(n_stars, n_walkers)`` walkers — every star's posterior
 advances in lockstep, the fused lnpost evaluates ``n_stars x n_walkers``
-points per step, and the chip stays saturated. One compile serves the whole
+points per step, and the device stays saturated. One compile serves the whole
 catalog (per-star ``BasicStarModel`` closures would recompile per star).
 
 Per-star observation values (and the parallax-derived distance bound,

@@ -10,7 +10,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Fit cluster properties to a table of member stars.")
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("starfile", help="HDF/CSV table of member-star photometry")
     parser.add_argument("--bands", nargs="*", default=None)
     parser.add_argument("--props", nargs="*", default=None)

@@ -11,7 +11,7 @@ import numpy as np
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Generate a synthetic cluster CMD table.")
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("N", type=int, nargs="?", default=None, help="number of stars")
     parser.add_argument("-N", dest="N_flag", type=int, default=None,
                         help="number of stars (reference-compat flag form)")

@@ -9,7 +9,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Pre-bake model grid caches.")
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("--models", default="mist")
     parser.add_argument("--bands", nargs="*", default=None)
     args = parser.parse_args(argv)

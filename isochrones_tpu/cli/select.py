@@ -14,7 +14,7 @@ import numpy as np
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Model selection between fitted multiplicities via log-evidence.")
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("folders", nargs="*", default=["."])
     parser.add_argument("--models", default="mist")
     args = parser.parse_args(argv)

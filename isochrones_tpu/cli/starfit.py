@@ -10,7 +10,7 @@ def build_parser():
     parser = argparse.ArgumentParser(
         description="Fit physical properties of a star conditioned on observed quantities."
     )
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("folders", nargs="*", default=["."])
     parser.add_argument("--binary", action="store_true")
     parser.add_argument("--triple", action="store_true")

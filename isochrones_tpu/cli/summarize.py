@@ -13,7 +13,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Summarize quantiles over many starfit results.")
-    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu); env vars are overridden in some TPU environments")
+    parser.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu for a CPU-only run)")
     parser.add_argument("names", nargs="*", help="star folder names (or use --filename)")
     parser.add_argument("-f", "--filename", "--listfile", dest="listfile", default=None,
                         help="file with one folder name per line")

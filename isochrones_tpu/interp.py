@@ -7,7 +7,7 @@ imports unchanged::
     from isochrones_tpu.interp import DFInterpolator, interp_value_3d
 
 These are host-convenience wrappers: the scalar index utilities run in
-plain numpy; the value/EEP interpolators delegate to the batched TPU
+plain numpy; the value/EEP interpolators delegate to the batched device
 kernels in :mod:`isochrones_tpu.ops` (``interp_nd``, ``interp_eep``,
 ``find_closest_grid``), which are the jittable compute path. Semantics
 match the reference (cell location, NaN/OOB handling, end-of-track

@@ -8,7 +8,7 @@ observations, relative photometry references the brightest source, and
 ``define_models`` hangs N model stars per system off the finest-resolution
 leaves.
 
-TPU-first difference — the likelihood: the reference walks the tree per
+Accelerator-first difference — the likelihood: the reference walks the tree per
 evaluation summing per-node Python lnlikes (observation.py:1181-1234). Here
 :func:`compile_plan` flattens the tree ONCE into static index arrays
 (:class:`TreePlan`), and :func:`tree_lnlike_batch` evaluates the whole tree
@@ -17,8 +17,8 @@ for a batch of parameter vectors as pure XLA:
 * all model stars' (Teff, logg, feh, mags) come from ONE batched fused
   interp_mag over a (B, n_stars, 5) parameter tensor;
 * per-ObsNode flux sums become a masked matmul
-  ``model_flux[o] = sum_s member[o, s] * flux[s, band[o]]`` — an einsum the
-  MXU executes directly;
+  ``model_flux[o] = sum_s member[o, s] * flux[s, band[o]]`` — one einsum,
+  pinned to full float32 precision;
 * relative-photometry referencing, spectroscopy, hard limits, parallax and
   AV terms are vectorized gathers + Gaussian accumulations.
 """
@@ -1224,6 +1224,7 @@ def compile_plan(tree: ObservationTree, ic) -> TreePlan:
 def make_tree_lnlike(plan: TreePlan):
     """Build the jittable (B, n_params) -> (B,) tree log-likelihood."""
     import jax.numpy as jnp
+    from jax import lax
 
     from .ops.interp import interp_nd
     from .ops.likelihood import LOG_ONE_OVER_ROOT_2PI
@@ -1276,7 +1277,8 @@ def make_tree_lnlike(plan: TreePlan):
 
         if plan.member.shape[0]:
             flux = 10.0 ** (-0.4 * mags)  # (B, n_stars, n_bands)
-            # masked flux sum per obs row: MXU einsum over the star axis.
+            # masked flux sum per obs row: an einsum over the star axis,
+            # pinned to full float32 (a GPU may otherwise use TF32).
             # NaN fluxes must be zeroed BEFORE the einsum (0 * NaN = NaN
             # would leak one off-grid star's NaN into EVERY row, -inf'ing
             # regions the host path evaluates finitely); NaN MEMBERSHIP is
@@ -1285,10 +1287,14 @@ def make_tree_lnlike(plan: TreePlan):
             flux_b = flux[..., obs_band]  # (B, n_stars, n_obs)
             flux_nan = jnp.isnan(flux_b)
             model_flux = jnp.einsum(
-                "...so,os->...o", jnp.where(flux_nan, 0.0, flux_b), member
+                "...so,os->...o", jnp.where(flux_nan, 0.0, flux_b), member,
+                precision=lax.Precision.HIGHEST,
             )
             row_nan = (
-                jnp.einsum("...so,os->...o", flux_nan.astype(p.dtype), member) > 0
+                jnp.einsum(
+                    "...so,os->...o", flux_nan.astype(p.dtype), member,
+                    precision=lax.Precision.HIGHEST,
+                ) > 0
             )
             model_mag = -2.5 * jnp.log10(model_flux)  # (B, n_obs)
 

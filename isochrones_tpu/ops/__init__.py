@@ -1,4 +1,4 @@
-"""Jittable TPU kernel layer — the rebuild of the reference's Numba L0
+"""Jittable device kernel layer — the rebuild of the reference's Numba L0
 (``isochrones/interp.py``, ``mags.py``, ``likelihood.py``, ``cluster_utils.py``)."""
 
 from .interp import GridData, GridInterpolator, compute_axis_maps, interp_nd, interp_grid, find_cells_1d

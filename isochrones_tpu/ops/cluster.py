@@ -8,8 +8,8 @@ Rebuild of ``isochrones/cluster_utils.py:9-128`` (``calc_lnlike_grid`` +
   intermediate at one (Nstars, Neep, Neep) buffer instead of
   (Nstars, Neep, Neep, Nbands));
 * the double trapezoid marginalization over (eep1, eep2) is a masked
-  pairwise-sum — two tensor contractions XLA maps onto the MXU/VPU;
-* multi-chip: the star axis shards cleanly (each chip owns a block of
+  pairwise-sum;
+* multi-device: the star axis shards cleanly (each device owns a block of
   stars' grids; total lnlike is a scalar psum) — see
   ``isochrones_tpu.parallel``.
 
@@ -27,12 +27,15 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..device import on_accelerator
+
 __all__ = [
     "calc_lnlike_grid",
     "integrate_over_eeps",
     "integrate_over_eeps_ln",
     "cluster_lnlike",
     "cluster_lnmarginal",
+    "kernel_path",
     "logaddexp",
     "logsumexp",
 ]
@@ -165,7 +168,7 @@ def integrate_over_eeps_ln(lnlike_grid, eeps):
     the marginal to -inf — once a star's whole (eep1, eep2) grid drops below
     ~-745 nats, which real prior boxes reach at their distance/age edges;
     a nested/MCMC sampler then sees a spurious zero-support region. The
-    pallas path streams a shifted logsumexp and never had the problem."""
+    Pallas kernel streams a shifted logsumexp and never had the problem."""
     m = jnp.max(lnlike_grid, axis=(1, 2))  # (Nstars,)
     m_safe = jnp.where(jnp.isfinite(m), m, 0.0)
     like = jnp.exp(lnlike_grid - m_safe[:, None, None])  # -inf -> 0, max -> 1
@@ -183,57 +186,56 @@ def integrate_over_eeps_ln(lnlike_grid, eeps):
     return m_safe + jnp.log(integral)
 
 
+def kernel_path(dtype, use_pallas=None, interpret=False):
+    """Whether :func:`cluster_lnmarginal` runs the Pallas kernel.
+
+    The rule: ``use_pallas=None`` picks the compiled kernel on a GPU for
+    float32 inputs and the XLA grid path otherwise (float64 on a GPU
+    included — the compiled kernel is float32 only), or the kernel in
+    interpret mode when ``interpret=True``. ``use_pallas=True`` without
+    ``interpret`` demands the compiled kernel and raises where it cannot
+    run (no GPU, or float64 inputs) instead of quietly interpreting or
+    falling back. ``use_pallas=False`` is the XLA grid path."""
+    if use_pallas is False:
+        return False
+    if interpret:
+        return True
+    f32 = jnp.dtype(dtype) == jnp.float32
+    if use_pallas is None:
+        return on_accelerator() and f32
+    if not on_accelerator():
+        raise RuntimeError(
+            "the compiled cluster kernel needs a GPU backend; pass "
+            "interpret=True to run it on the CPU"
+        )
+    if not f32:
+        raise ValueError(
+            f"the compiled cluster kernel is float32 only, got {jnp.dtype(dtype)}; "
+            "use use_pallas=None (XLA grid path) or interpret=True"
+        )
+    return True
+
+
 def cluster_lnmarginal(
     lnlike_prop, model_mags, masses, ln_dm_deeps, eeps, mag_values, mag_uncs,
     alpha, gamma, fB, mass_lo, mass_hi, q_lo, valid=None, use_pallas=None,
-    q_jacobian=False, valid_k=None,
+    q_jacobian=False, valid_k=None, interpret=False,
 ):
     """Per-star ln marginal likelihood (S,) — ``log(integrate_over_eeps(
-    calc_lnlike_grid(...)))`` with a backend switch. On TPU this runs the
-    fused pallas kernel (:mod:`isochrones_tpu.ops.cluster_pallas`), which
-    never materializes the (S, E, E) plane in HBM; elsewhere (and under
-    ``ISOTPU_CLUSTER_PALLAS=0``) it runs the XLA path. Returns -inf where
-    the marginal is zero."""
+    calc_lnlike_grid(...)))`` with a backend switch (:func:`kernel_path`).
+    On a GPU this runs the fused Pallas kernel
+    (:mod:`isochrones_tpu.ops.cluster_pallas`), which never materializes
+    the (S, E, E) plane in device memory; elsewhere it runs the XLA path.
+    Returns -inf where the marginal is zero."""
     if valid is None:
         valid = jnp.ones(model_mags.shape[0], dtype=bool)
-    forced_pallas = use_pallas is True
-    if use_pallas is None:
-        import os
-
-        env = os.environ.get("ISOTPU_CLUSTER_PALLAS", "")
-        if env in ("0", "false"):
-            use_pallas = False
-        elif env in ("1", "true"):
-            use_pallas = True
-            forced_pallas = True
-        else:
-            use_pallas = jax.default_backend() == "tpu"
-    if (
-        use_pallas
-        and jax.default_backend() == "tpu"
-        and jnp.dtype(model_mags.dtype).itemsize == 8
-    ):
-        # Mosaic (compiled pallas) lowers only 32-bit scalar element types;
-        # a user enabling x64 on a TPU backend would hit an opaque lowering
-        # error — take the XLA grid path instead (interpret mode elsewhere
-        # handles f64 fine, so CPU parity tests are unaffected)
-        if forced_pallas:
-            import logging
-
-            logging.getLogger("isochrones_tpu").warning(
-                "cluster: pallas kernel was explicitly requested but the "
-                "inputs are float64 on a TPU backend (Mosaic lowers 32-bit "
-                "element types only) — falling back to the XLA grid path"
-            )
-        use_pallas = False
-    if use_pallas:
+    if kernel_path(model_mags.dtype, use_pallas, interpret):
         from .cluster_pallas import cluster_lnmarginal_pallas
 
         return cluster_lnmarginal_pallas(
             lnlike_prop, model_mags, masses, ln_dm_deeps, eeps, mag_values,
             mag_uncs, alpha, gamma, fB, mass_lo, mass_hi, q_lo, valid,
-            interpret=jax.default_backend() != "tpu", q_jacobian=q_jacobian,
-            valid_k=valid_k,
+            interpret=interpret, q_jacobian=q_jacobian, valid_k=valid_k,
         )
     grid = calc_lnlike_grid(
         lnlike_prop, model_mags, masses, ln_dm_deeps, mag_values, mag_uncs,

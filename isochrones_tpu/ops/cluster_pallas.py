@@ -1,37 +1,42 @@
-"""Pallas TPU kernel for the hierarchical-cluster marginal likelihood.
+"""Pallas kernel (Triton route) for the hierarchical-cluster marginal.
 
-This is the fused, VMEM-resident version of
-``ops/cluster.py::calc_lnlike_grid`` + ``integrate_over_eeps``
-(reference ``isochrones/cluster_utils.py:9-128``). The XLA path
-materializes the (Nstars, Neep, Neep) binary-mixture grid in HBM and
-re-reads it once per band plus twice for the trapezoids — at MIST scale
-(50 stars x 800 EEPs) that's ~128 MB per buffer and several GB of HBM
-round-trips per posterior evaluation. Here each (star, j-tile) program:
+This is the fused version of ``ops/cluster.py::calc_lnlike_grid`` +
+``integrate_over_eeps`` (reference ``isochrones/cluster_utils.py:9-128``).
+The XLA path materializes the (Nstars, Neep, Neep) binary-mixture plane in
+device memory and re-reads it once per band plus once for the trapezoids;
+at the full 1710-EEP ladder that plane is ~585 MB per walker in float32,
+so the walker batch has to run one walker at a time. Here the plane never
+leaves the block that computes it. Each (star tile, j tile) program:
 
-* streams (TJ, TK) tiles of the q-prior and trapezoid-weight
-  matrices through VMEM (double-buffered automatically by the pallas
-  pipeline; the k axis is tiled so scoped VMEM stays bounded at any
-  EEP-ladder length, incl. the real MIST grid's 1710),
-* rebuilds the photometric mixture per band on the VPU in registers
-  (flux rows are tiny and live in VMEM for the whole program),
-* folds the double trapezoid into a single weighted sum-of-exp
-  (see ``trapezoid_weights`` — an exact linear-algebra identity with
-  the pairwise-sum formulation), and
-* accumulates one scalar per star in SMEM.
+* loads its j rows of flux, single-star magnitudes and per-star row terms
+  once, then loops over k tiles inside the kernel (``lax.fori_loop``),
+  stopping at the diagonal: the integrand is lower-triangular (k <= j), so
+  tiles above it are never visited;
+* per k tile, builds the star-independent binary magnitude
+  ``-2.5 log10(f1 + f2)`` once per band and reuses it for every star of
+  the tile, then forms each star's band mixture in registers;
+* folds the double trapezoid into one weighted sum-of-exp (see
+  ``trapezoid_weights``, an exact identity with the pairwise form) and
+  keeps, for every j row, a running (max, rescaled sum) across k tiles;
+* writes those per-row partials. Blocks run in parallel and in no order,
+  so nothing is carried between them: a log-sum-exp in XLA combines the
+  j rows into each star's ln-marginal.
 
-HBM traffic drops from O(S*E^2*B) to O(E^2) per evaluation; the kernel
-is VPU-bound (transcendentals), which is the speed-of-light regime for
-this op. Numerics: the integral accumulates as a STREAMING weighted
-log-sum-exp (per-star running max + rescaled sum across tiles), so the
-result is exact up to rounding at any magnitude. The XLA grid path's
-``integrate_over_eeps_ln`` applies the equivalent per-star max shift, so
-both backends return finite tiny ln-marginals where the reference's raw
-exp-space trapezoid (cluster_utils.py:108-128) underflows whole marginals
-to -inf below ~-745 nats (f64) / ~-88 (f32).
+Device traffic drops from O(S*E^2*B) to O(S/TS * E^2) reads of the two
+(E, E) weight planes; the kernel is bound by transcendentals.
 
-Semantics deviations from the reference: only that underflow behavior;
-the lower-triangle/q-floor/validity masking is folded into the zero
-pattern of the weight matrix.
+Numerics: the streaming log-sum-exp is exact up to rounding at any
+magnitude. The XLA path's ``integrate_over_eeps_ln`` applies the
+equivalent per-star max shift, so both return finite tiny ln-marginals
+where the reference's raw exp-space trapezoid (cluster_utils.py:108-128)
+underflows whole marginals to -inf below ~-745 nats (f64) / ~-88 (f32).
+Only that underflow behavior deviates from the reference; the
+lower-triangle/q-floor/validity masking is folded into the zero pattern of
+the weight matrix.
+
+The compiled kernel is float32 only (``ops/cluster.py::kernel_path`` holds
+the dispatch rule). ``interpret=True`` runs the same program on the CPU in
+any dtype, which is how the tests check it without a card.
 """
 
 from __future__ import annotations
@@ -41,13 +46,32 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["cluster_lnmarginal_pallas", "trapezoid_weights"]
+__all__ = ["cluster_lnmarginal_pallas", "trapezoid_weights", "plan_tiles"]
+
+#: streaming SMs on an H100 (SXM and PCIe both have 132 enabled). The
+#: planner keeps at least two blocks per SM in flight for one walker.
+_N_SM = 132
+#: float32 tile elements the planner lets one block hold live across the
+#: k loop: ``n_bands`` binary-magnitude tiles plus the q-prior, weight,
+#: accumulator and exponent tiles. 4 warps x 128 threads x ~96 registers
+#: of tile data keeps each thread well under the 255-register cap.
+_TILE_ELEMS_BUDGET = 4 * 32 * 96
+_NUM_WARPS = 4
+_NEG_BIG = -1e30
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+#: -2.5 log10(x) = _MAG_PER_LOG2 * log2(x)
+_MAG_PER_LOG2 = -2.5 * 0.30102999566398120
 
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+def _is_pow2(n):
+    return n > 0 and (n & (n - 1)) == 0
 
 
 def trapezoid_weights(eeps, mask):
@@ -75,89 +99,120 @@ def trapezoid_weights(eeps, mask):
     return jnp.where(mask, w_outer[:, None] * w_inner, 0.0)
 
 
-def _cluster_kernel(n_bands, n_stars_tile, fluxj_ref, fluxk_ref, magsj_ref,
-                    lnq_ref, w2_ref, lnjrow_ref, magv_ref, magu_ref, lnfb_ref,
-                    m_ref, s_ref):
-    """One (star-tile, j-tile, k-tile) program: photometric mixture over
-    bands + priors, then a STREAMING log-sum-exp of the weighted integrand
-    per star — running max ``m_ref[t, 0]`` and rescaled sum ``s_ref[t, 0]``
-    in SMEM, updated across (j, k) tiles. Exact up to f32 rounding: no
-    precomputed shift estimate exists to under- or overshoot (masked cells
-    are pinned to -1e30 so they can neither win the max nor overflow the
-    exp). The k axis is tiled so scoped VMEM stays bounded at ANY ladder
-    length (the real MIST grid's 1710-EEP ladder blew the 16 MB scope with
-    full-width k slabs — VERDICT r4 missing #2).
+def plan_tiles(n_eep, n_stars, n_bands):
+    """(tile_s, tile_j, tile_k) for one walker's marginal.
 
-    Bands are the outer static loop so the star-independent binary
-    magnitude ``-2.5 log10(f1 + f2)`` (the most expensive transcendental)
-    is computed once and reused across the ``n_stars_tile`` stars."""
+    All three are powers of two. ``tile_j * tile_k`` elements times the
+    ``n_bands + 4`` tiles a block keeps live stay under the register
+    budget; ``tile_k`` is the wider side, so each k step loads contiguous
+    rows. ``tile_s`` (stars per block) amortizes the binary magnitude over
+    stars; 4 measured fastest on an H100 at 50 stars x 800 and 1710 EEPs
+    (8 and 16 keep too many per-star carries live). It is halved until one
+    walker alone launches at least two blocks per SM."""
+    tile_elems = _TILE_ELEMS_BUDGET // (n_bands + 4)
+    tile_k = 64
+    tile_j = 32
+    while tile_j * tile_k > tile_elems and tile_j > 8:
+        tile_j //= 2
+    while tile_j * tile_k > tile_elems and tile_k > 16:
+        tile_k //= 2
+    n_j = -(-max(n_eep, 1) // tile_j)
+    tile_s = 4
+    while tile_s > 1 and -(-n_stars // tile_s) * n_j < 2 * _N_SM:
+        tile_s //= 2
+    return tile_s, tile_j, tile_k
+
+
+def _log2(x, interpret):
+    """Base-2 log. Compiled: one ``lg2.approx.f32`` (max abs error ~2^-22,
+    far below the float32 rounding of the sums it feeds); jnp has no log2
+    primitive and its ``log(x) / log(2)`` lowers to the slower accurate
+    ``__nv_logf``. Interpreted: ``jnp.log2`` in the caller's dtype."""
+    if interpret:
+        return jnp.log2(x)
+    (y,) = plgpu.elementwise_inline_asm(
+        "lg2.approx.f32 $0, $1;",
+        args=[x],
+        constraints="=f,f",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, x.dtype)],
+    )
+    return y
+
+
+def _cluster_kernel(n_bands, tile_s, tile_k, n_k_tiles, interpret,
+                    fluxj_ref, fluxk_ref, magsj_ref, lnq_ref, w2_ref,
+                    lnjrow_ref, magv_ref, hinv_ref, lnfb_ref, m_ref, s_ref):
+    """One (star tile, j tile) program. Loops over the k tiles at or below
+    the diagonal and leaves, per star and j row, the running max
+    ``m_ref[t, j]`` and the sum ``s_ref[t, j]`` of ``w2 * 2^(lnL - m)``
+    over k. Every log-likelihood term arrives pre-scaled to base 2 (log2 e
+    times the natural value), so each transcendental is one ``exp2`` or
+    ``log2``. Masked cells are pinned to -1e30 so they can neither win the
+    max nor overflow the exp."""
     jb = pl.program_id(1)
-    kb = pl.program_id(2)
+    tile_j = fluxj_ref.shape[1]
 
-    ln_fb = lnfb_ref[0, 0]
-    ln_1mfb = lnfb_ref[0, 1]
+    ln_fb = lnfb_ref[0]
+    ln_1mfb = lnfb_ref[1]
+    fj = [fluxj_ref[b, :] for b in range(n_bands)]  # (TJ,) primary flux
+    mv = [[magv_ref[t, b] for b in range(n_bands)] for t in range(tile_s)]
+    hv = [[hinv_ref[t, b] for b in range(n_bands)] for t in range(tile_s)]
+    # the single-star term depends on the primary row only
+    ln_single = []
+    for t in range(tile_s):
+        row = []
+        for b in range(n_bands):
+            rs = magsj_ref[b, :] - mv[t][b]
+            row.append((ln_1mfb - rs * rs * hv[t][b])[:, None])  # (TJ, 1)
+        ln_single.append(row)
+    lnjrow = [lnjrow_ref[t, :][:, None] for t in range(tile_s)]  # (TJ, 1)
 
-    accs = [jnp.zeros(lnq_ref.shape, dtype=lnq_ref.dtype)
-            for _ in range(n_stars_tile)]
-    for b in range(n_bands):  # static band loop
-        f1 = fluxj_ref[b, :][:, None]  # (TJ, 1) primary flux
-        f2 = fluxk_ref[b, :][None, :]  # (1, Ep) secondary flux
-        mag_bin = -2.5 * jnp.log10(f1 + f2)  # (TJ, Ep), star-independent
-        mags_j = magsj_ref[b, :][:, None]  # (TJ, 1) single = primary only
-        for t in range(n_stars_tile):
-            mv = magv_ref[t, b]
-            inv = 1.0 / (magu_ref[t, b] * magu_ref[t, b])
-            rb = mag_bin - mv
-            ln_binary = ln_fb - 0.5 * rb * rb * inv  # (TJ, Ep)
-            rs = mags_j - mv
-            ln_single = ln_1mfb - 0.5 * rs * rs * inv
-            accs[t] = accs[t] + jnp.logaddexp(ln_binary, ln_single)
+    # k <= j <= (jb + 1) * TJ - 1: tiles past the diagonal hold no weight
+    n_k = jnp.minimum(((jb + 1) * tile_j + tile_k - 1) // tile_k, n_k_tiles)
 
-    neg_big = jnp.asarray(-1e30, dtype=lnq_ref.dtype)
+    def body(kk, carry):
+        ms, ss = carry
+        ks = pl.ds(kk * tile_k, tile_k)
+        # -2.5 log10(f1 + f2), shared by every star of the tile
+        mag_bin = [
+            _MAG_PER_LOG2 * _log2(fj[b][:, None] + fluxk_ref[b, ks][None, :], interpret)
+            for b in range(n_bands)
+        ]  # (TJ, TK) each
+        lnq = lnq_ref[:, ks]
+        w2 = w2_ref[:, ks]
+        live = w2 > 0
+        new_ms, new_ss = [], []
+        for t in range(tile_s):
+            acc = None
+            for b in range(n_bands):
+                rb = mag_bin[b] - mv[t][b]
+                x = ln_fb - rb * rb * hv[t][b]
+                y = ln_single[t][b]
+                # base-2 logaddexp; both sides are finite or -inf, never NaN
+                mix = jnp.maximum(x, y) + _log2(1.0 + jnp.exp2(-jnp.abs(x - y)), interpret)
+                acc = mix if acc is None else acc + mix
+            a = jnp.where(live, acc + lnq + lnjrow[t], _NEG_BIG)
+            m_new = jnp.maximum(ms[t], jnp.max(a, axis=1))
+            s_new = ss[t] * jnp.exp2(ms[t] - m_new) + jnp.sum(
+                jnp.exp2(a - m_new[:, None]) * w2, axis=1
+            )
+            new_ms.append(m_new)
+            new_ss.append(s_new)
+        return tuple(new_ms), tuple(new_ss)
 
-    @pl.when((jb == 0) & (kb == 0))
-    def _():
-        for t in range(n_stars_tile):
-            m_ref[t, 0] = neg_big
-            s_ref[t, 0] = jnp.zeros((), dtype=s_ref.dtype)
-
-    # + q prior (j,k) + [mass prior + dm/deep + property lnlike](j), then
-    # fold this tile into the per-star streaming logsumexp accumulators
-    for t in range(n_stars_tile):
-        a = accs[t] + lnq_ref[:] + lnjrow_ref[t, :][:, None]
-        a = jnp.where(w2_ref[:] > 0, a, neg_big)
-        m_tile = jnp.max(a)
-        term = jnp.sum(jnp.exp(a - m_tile) * w2_ref[:])
-        m_old = m_ref[t, 0]
-        m_new = jnp.maximum(m_old, m_tile)
-        s_ref[t, 0] = (
-            s_ref[t, 0] * jnp.exp(m_old - m_new)
-            + term * jnp.exp(m_tile - m_new)
-        )
-        m_ref[t, 0] = m_new
-
-
-# measured scoped-VMEM footprint on v5e: ~100 bytes per (j, k) tile cell at
-# TS=8 (accs + double-buffered lnq/w2 blocks + fused temporaries; the r4
-# full-k kernel allocated 22.77 MB at 128 x 1792 cells). 140k cells keeps
-# the scope under ~14 MB of the 16 MB limit — and leaves the long-standing
-# 800-EEP configuration (128 x 896 = 114k cells, known-good on chip) on a
-# single k tile, unchanged.
-_VMEM_CELL_BUDGET = 140_000
-
-
-def _plan_k_tiles(E, TJ):
-    """(n_k_tiles, TK) for ladder length ``E`` at j-tile ``TJ``: balanced
-    128-aligned k tiles with TJ*TK under the measured VMEM cell budget.
-    Shared by the kernel wrapper and its regression test so the planning
-    arithmetic cannot drift apart."""
-    tk_max = max(128, (_VMEM_CELL_BUDGET // TJ) // 128 * 128)
-    nkb = -(-_round_up(E, 128) // tk_max)  # ceil division over k tiles
-    TK = _round_up(-(-_round_up(E, 128) // nkb), 128)  # balanced tiles
-    return nkb, TK
+    dt = w2_ref.dtype
+    init = (
+        tuple(jnp.full((tile_j,), _NEG_BIG, dtype=dt) for _ in range(tile_s)),
+        tuple(jnp.zeros((tile_j,), dtype=dt) for _ in range(tile_s)),
+    )
+    ms, ss = jax.lax.fori_loop(0, n_k, body, init)
+    for t in range(tile_s):
+        m_ref[t, :] = ms[t]
+        s_ref[t, :] = ss[t]
 
 
-@partial(jax.jit, static_argnames=("interpret", "tile_j", "tile_k", "q_jacobian"))
+@partial(jax.jit, static_argnames=("interpret", "tile_s", "tile_j", "tile_k", "q_jacobian"))
 def cluster_lnmarginal_pallas(
     lnlike_prop,  # (S, E) per-star property lnlike (may contain -inf/nan)
     model_mags,  # (E, B) model magnitudes along the EEP ladder
@@ -175,14 +230,15 @@ def cluster_lnmarginal_pallas(
     valid,  # (E,) bool — primary (j) rows with finite model values
     *,
     interpret=False,
-    tile_j=128,
-    tile_k=None,  # k-axis tile (lane dim); None = auto from the VMEM budget
+    tile_s=None,  # stars per block; None = plan_tiles
+    tile_j=None,  # primary-EEP rows per block; None = plan_tiles
+    tile_k=None,  # secondary-EEP columns per k step; None = plan_tiles
     q_jacobian=False,
     valid_k=None,  # (E,) bool — secondary (k) rows; defaults to ``valid``
 ):
     """Per-star ln marginal likelihood (S,) — ``log`` of what
     ``integrate_over_eeps(calc_lnlike_grid(...), eeps)`` returns, computed
-    by one fused pallas kernel (reference cluster.py:365-378 +
+    by one fused Pallas kernel (reference cluster.py:365-378 +
     cluster_utils.py:9-128) with streaming log-sum-exp accumulation.
     Returns -inf where the marginal is zero; may return a finite tiny
     value where the grid path's raw ``exp`` underflows to zero.
@@ -190,6 +246,14 @@ def cluster_lnmarginal_pallas(
     dt = model_mags.dtype
     S, B = mag_values.shape
     E = model_mags.shape[0]
+
+    auto = plan_tiles(E, S, B)
+    TS = int(tile_s or auto[0])
+    TJ = int(tile_j or auto[1])
+    TK = int(tile_k or auto[2])
+    for name, v in (("tile_s", TS), ("tile_j", TJ), ("tile_k", TK)):
+        if not _is_pow2(v):
+            raise ValueError(f"{name}={v} must be a power of two")
 
     if valid_k is None:
         valid_k = valid
@@ -215,74 +279,64 @@ def cluster_lnmarginal_pallas(
     w2 = trapezoid_weights(eeps, mask).astype(dt)
     lnq = jnp.where(mask, lnq, 0.0)  # masked entries have w2 == 0
 
-    lnprop = jnp.nan_to_num(lnlike_prop, nan=-1e30, neginf=-1e30)
-    ln_fb = jnp.log(fB)
-    ln_1mfb = jnp.log1p(-fB)
+    lnprop = jnp.nan_to_num(lnlike_prop, nan=_NEG_BIG, neginf=_NEG_BIG)
+    # fold everything j-indexed into one (S, E) row term; the kernel works
+    # in base 2, so every log-likelihood term is scaled by log2(e) here
+    lnjrow = (lnprop + lnmass[None, :]) * _LOG2E
+    lnq = lnq * _LOG2E
 
-    # fold everything j-indexed into one (S, E) row term; normalization is
-    # handled by the kernel's streaming logsumexp (no shift estimate)
-    lnjrow = lnprop + lnmass[None, :]  # (S, E)
-
-    # ---- pad to TPU tiles: k (lane) to TK blocks, j (sublane blocks) to
-    # tile_j, stars to tiles of TS (padded stars carry -1e30 rows -> zero
-    # weight). The k axis is tiled so TJ x TK stays under the measured
-    # scoped-VMEM budget at any ladder length (r4: full-width k slabs
-    # failed to COMPILE at the real grid's 1710-EEP ladder).
-    TJ = int(tile_j)
-    TS = 8
-    Ejp = _round_up(E, TJ)
-    if tile_k is None:
-        nkb, TK = _plan_k_tiles(E, TJ)
-    else:
-        TK = int(tile_k)
-        nkb = -(-E // TK)
-    Ekp = TK * nkb
+    # ---- pad: both EEP axes to a common multiple of the tiles (padded
+    # rows/columns carry zero weight and finite values), bands to a power
+    # of two (the kernel loops over the real ones only), stars to TS
+    # (padded stars carry -1e30 rows -> zero weight)
+    Ep = _round_up(E, max(TJ, TK))
+    Bp = pl.next_power_of_2(B)
     Sp = _round_up(S, TS)
-    pj = Ejp - E
-    pk = Ekp - E
-    ps = Sp - S
-    # padded j rows / k cols carry zero weight; keep their values finite
-    fluxT = jnp.pad(flux.T, ((0, 0), (0, max(pj, pk))), constant_values=1.0)
-    fluxj = fluxT[:, :Ejp]  # (B, Ejp) — j-blocked view
-    fluxk = fluxT[:, :Ekp]  # (B, Ekp) — k-blocked view
-    magsj = jnp.pad(safe_mags.T, ((0, 0), (0, pj)))  # (B, Ejp)
-    lnq_p = jnp.pad(lnq, ((0, pj), (0, pk)))
-    w2_p = jnp.pad(w2, ((0, pj), (0, pk)))
-    lnjrow_p = jnp.pad(lnjrow, ((0, ps), (0, pj)), constant_values=-1e30)
-    magv_p = jnp.pad(mag_values.astype(dt), ((0, ps), (0, 0)))
-    magu_p = jnp.pad(mag_uncs.astype(dt), ((0, ps), (0, 0)), constant_values=1.0)
-    params = jnp.stack([ln_fb, ln_1mfb]).astype(dt)[None, :]  # (1, 2)
+    pe, pb, ps = Ep - E, Bp - B, Sp - S
+    fluxT = jnp.pad(flux.T, ((0, pb), (0, pe)), constant_values=1.0)  # (Bp, Ep)
+    magsT = jnp.pad(safe_mags.T, ((0, pb), (0, pe)))  # (Bp, Ep)
+    lnq_p = jnp.pad(lnq, ((0, pe), (0, pe)))
+    w2_p = jnp.pad(w2, ((0, pe), (0, pe)))
+    lnjrow_p = jnp.pad(lnjrow, ((0, ps), (0, pe)), constant_values=_NEG_BIG)
+    magv_p = jnp.pad(mag_values.astype(dt), ((0, ps), (0, pb)))
+    unc_p = jnp.pad(mag_uncs.astype(dt), ((0, ps), (0, pb)), constant_values=1.0)
+    hinv_p = (0.5 * _LOG2E) / (unc_p * unc_p)
+    params = (jnp.stack([jnp.log(fB), jnp.log1p(-fB)]) * _LOG2E).astype(dt)  # (2,)
 
-    njb = Ejp // TJ
-    grid = (Sp // TS, njb, nkb)
-    out = pl.pallas_call(
-        partial(_cluster_kernel, B, TS),
+    out = jax.ShapeDtypeStruct((Sp, Ep), dt)
+    n_j = Ep // TJ
+    grid = (Sp // TS, n_j)
+    m_out, s_out = pl.pallas_call(
+        partial(_cluster_kernel, B, TS, TK, Ep // TK, interpret),
         grid=grid,
         in_specs=[
-            pl.BlockSpec((B, TJ), lambda sb, jb, kb: (0, jb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, TK), lambda sb, jb, kb: (0, kb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, TJ), lambda sb, jb, kb: (0, jb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TJ, TK), lambda sb, jb, kb: (jb, kb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TJ, TK), lambda sb, jb, kb: (jb, kb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TS, TJ), lambda sb, jb, kb: (sb, jb), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TS, B), lambda sb, jb, kb: (sb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((TS, B), lambda sb, jb, kb: (sb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 2), lambda sb, jb, kb: (0, 0), memory_space=pltpu.SMEM),
+            pl.BlockSpec((Bp, TJ), lambda sb, jb: (0, jb)),  # flux, j rows
+            pl.BlockSpec((Bp, Ep), lambda sb, jb: (0, 0)),  # flux, all k
+            pl.BlockSpec((Bp, TJ), lambda sb, jb: (0, jb)),  # single mags
+            pl.BlockSpec((TJ, Ep), lambda sb, jb: (jb, 0)),  # q prior
+            pl.BlockSpec((TJ, Ep), lambda sb, jb: (jb, 0)),  # trapezoid w
+            pl.BlockSpec((TS, TJ), lambda sb, jb: (sb, jb)),  # row terms
+            pl.BlockSpec((TS, Bp), lambda sb, jb: (sb, 0)),  # observed mags
+            pl.BlockSpec((TS, Bp), lambda sb, jb: (sb, 0)),  # log2(e) / 2unc^2
+            pl.BlockSpec((2,), lambda sb, jb: (0,)),  # log2 fB, log2(1 - fB)
         ],
         out_specs=(
-            pl.BlockSpec((TS, 1), lambda sb, jb, kb: (sb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((TS, 1), lambda sb, jb, kb: (sb, 0), memory_space=pltpu.SMEM),
+            pl.BlockSpec((TS, TJ), lambda sb, jb: (sb, jb)),
+            pl.BlockSpec((TS, TJ), lambda sb, jb: (sb, jb)),
         ),
-        out_shape=(
-            jax.ShapeDtypeStruct((Sp, 1), dt),
-            jax.ShapeDtypeStruct((Sp, 1), dt),
-        ),
+        out_shape=(out, out),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS, num_stages=2),
         interpret=interpret,
-    )(fluxj, fluxk, magsj, lnq_p, w2_p, lnjrow_p, magv_p, magu_p, params)
+        name="cluster_lnmarginal",
+    )(fluxT, fluxT, magsT, lnq_p, w2_p, lnjrow_p, magv_p, hinv_p, params)
 
-    m_out, s_out = out
-    # log(S) + M; a star with no unmasked support has S == 0 -> -inf, and a
-    # star whose only support carries the -1e30 no-data sentinel lands at
-    # ~-1e30 -> also -inf (no physical ln-marginal approaches -1e20)
-    res = jnp.log(s_out[:S, 0]) + m_out[:S, 0]
+    # combine the per-row partials: ln sum_j s_j 2^m_j per star. A star
+    # with no unmasked support has s == 0 -> -inf; one whose only support
+    # carries the -1e30 no-data sentinel lands near -1e30 -> also -inf (no
+    # physical ln-marginal approaches -1e20)
+    m_out, s_out = m_out[:S], s_out[:S]
+    m_max = jnp.max(m_out, axis=1)
+    total = jnp.sum(s_out * jnp.exp2(m_out - m_max[:, None]), axis=1)
+    res = (jnp.log2(total) + m_max) * _LN2
     return jnp.where(res > -1e20, res, -jnp.inf)

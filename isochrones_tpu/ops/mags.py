@@ -7,7 +7,7 @@ composed with 4-d interpolation of per-band bolometric corrections at
 
 Everything is batch-first and jittable: one call handles an arbitrary leading
 batch shape (the reference loops serially per point, mags.py:96-123). The two
-grid interpolations are chained gathers that XLA keeps entirely in HBM/VMEM.
+grid interpolations are chained gathers that XLA keeps on the device.
 """
 
 from __future__ import annotations

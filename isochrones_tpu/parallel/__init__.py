@@ -1,23 +1,23 @@
-"""Multi-chip parallelism (SPMD over `jax.sharding.Mesh`).
+"""Multi-device parallelism (SPMD over `jax.sharding.Mesh`).
 
 The reference's distributed layer is MPI rank-parallel likelihood fan-out for
 MultiNest plus schwimmbad pools and SLURM job arrays (SURVEY §2.8). All of it
-is embarrassingly parallel over walkers/live-points/stars, so the TPU-native
+is embarrassingly parallel over walkers/live-points/stars, so the device
 equivalent is pure data-parallel sharding:
 
 * walkers/live points shard along a ``walkers`` mesh axis — the vmapped
-  lnpost (grid gathers + Gaussian terms, the hot kernel) runs on each chip's
+  lnpost (grid gathers + Gaussian terms, the hot kernel) runs on each device's
   slice with zero communication;
 * the ensemble stretch move needs the complementary half-ensemble, which XLA
-  materializes with a tiny all-gather of the (n_walkers, n_params) state over
-  ICI — negligible next to the lnpost gathers;
-* cluster likelihoods shard along a ``stars`` axis (each chip owns a block of
+  materializes with a tiny all-gather of the (n_walkers, n_params) state —
+  negligible next to the lnpost gathers;
+* cluster likelihoods shard along a ``stars`` axis (each device owns a block of
   stars' (Neep x Neep) lnlike grids; the total is a psum of scalars);
 * fleets of independent fits (the ``batch_starfit`` role) shard across hosts —
   no collectives at all.
 
 Grids (:class:`~isochrones_tpu.ops.interp.GridData` pytrees) are replicated:
-they are read-only, fit in HBM in f32/f64, and every walker gathers from
+they are read-only, fit in device memory in f32/f64, and every walker gathers from
 random locations, so replication beats sharding + all-to-all.
 """
 

@@ -3,14 +3,14 @@
 The reference's multi-node story is ``scripts/batch_starfit``: a SLURM job
 array that shards a folder list across nodes with awk/xargs — embarrassingly
 parallel, zero inter-node communication (SURVEY §2.8c / §5 "distributed
-backend"). The TPU-native equivalent keeps that shape: each host process owns
-a contiguous shard of the work list and runs its fits on its local chips;
+backend"). The equivalent here keeps that shape: each host process owns
+a contiguous shard of the work list and runs its fits on its local devices;
 cross-host traffic is limited to ``jax.distributed`` control-plane setup (and
-an optional completion barrier). ICI-level sharding of a single fit lives in
-:mod:`isochrones_tpu.parallel` (mesh/pjit); this module covers the DCN level.
+an optional completion barrier). Device-level sharding of a single fit lives
+in :mod:`isochrones_tpu.parallel` (mesh/pjit); this module covers the host level.
 
 Environment conventions follow ``jax.distributed.initialize``: explicit
-arguments win, else JAX's cluster auto-detection (SLURM, TPU pods, …), else
+arguments win, else JAX's cluster auto-detection (SLURM, …), else
 the ``ISOCHRONES_TPU_{COORDINATOR,NUM_PROCESSES,PROCESS_ID}`` variables set by
 the ``batch-starfit --multihost`` launcher.
 """
@@ -48,7 +48,7 @@ def initialize_distributed(
         process_id = int(os.environ["ISOCHRONES_TPU_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # plain single-host run — possibly under SLURM/TPU-pod auto-detection
+        # plain single-host run — possibly under SLURM auto-detection
         try:
             if jax.process_count() > 1:
                 return jax.process_index(), jax.process_count()
@@ -108,7 +108,7 @@ def fleet_map(fn, items: Sequence, barrier: bool = True, timeout_s: float = 8640
 def _fleet_barrier(name: str, timeout_s: float = 86400.0):
     """Cross-process barrier via the jax.distributed COORDINATION service.
 
-    Deliberately NOT a device collective (`sync_global_devices`): a gloo/ICI
+    Deliberately NOT a device collective (`sync_global_devices`): a
     collective creates its transport pairs lazily at first use with a short
     connect timeout, so a barrier first reached minutes apart (shards of
     independent fits routinely finish minutes apart) times out. The

@@ -444,7 +444,7 @@ class BrokenPrior(Prior):
         return self.components[i].lnpdf(x) - self.lognorms[i]
 
     def _lnpdf_jax(self, x):
-        # evaluate every component and select (few components; cheap on VPU)
+        # evaluate every component and select (few components; cheap)
         idx = jnp.digitize(jnp.asarray(x), jnp.asarray(self.breakpoints))
         lns = jnp.stack(
             [c.lnpdf_jax(x) - self.lognorms[k] for k, c in enumerate(self.components)], axis=0

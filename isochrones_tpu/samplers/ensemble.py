@@ -138,7 +138,7 @@ def _kde_half(lnpost_v, active, passive, lnp_active, key):
     mu = jnp.mean(passive, axis=0)
     c = passive - mu
     # scipy.gaussian_kde: kernel cov = scott_factor^2 * sample cov (ddof=1)
-    cov = (c.T @ c) / (n_pas - 1)
+    cov = jnp.matmul(c.T, c, precision=jax.lax.Precision.HIGHEST) / (n_pas - 1)
     h = float(n_pas) ** (-1.0 / (n_dim + 4))  # Scott's rule
     # Regularization must scale WITH the parameter scales: the sample cov has
     # rank <= n_pas - 1 and f32 rounding leaves eigenvalues negative by far
@@ -156,7 +156,7 @@ def _kde_half(lnpost_v, active, passive, lnp_active, key):
 
     picks = jax.random.randint(k_pick, (n_act,), 0, n_pas)
     eps = jax.random.normal(k_eps, active.shape, dtype=active.dtype)
-    proposal = passive[picks] + eps @ L.T
+    proposal = passive[picks] + jnp.matmul(eps, L.T, precision=jax.lax.Precision.HIGHEST)
 
     def ln_kde(x):
         # (n, d) -> (n,): logsumexp of kernel densities over passive points.
@@ -268,7 +268,7 @@ def run_ensemble_batch(
     a: float = 2.0,
 ):
     """Many independent ensembles advanced in lockstep — one XLA program
-    fitting a whole catalog of stars simultaneously (the TPU-native
+    fitting a whole catalog of stars simultaneously (the on-device
     replacement for the reference's SLURM fleet-of-fits,
     scripts/batch_starfit).
 

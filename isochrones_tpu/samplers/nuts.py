@@ -476,7 +476,7 @@ def run_nuts(
         logp_z = logp_batch
 
         def logp_batch_y(y):
-            return logp_z(mu[None, :] + y @ W.T)
+            return logp_z(mu[None, :] + jnp.matmul(y, W.T, precision=jax.lax.Precision.HIGHEST))
 
         x0_run = solve_triangular(W, (x0 - mu[None, :]).T, lower=True).T
         logp_run = logp_batch_y
@@ -510,7 +510,7 @@ def run_nuts(
         )
 
     if W is not None:
-        chain = mu[None, None, :] + jnp.einsum("scd,ed->sce", chain, W)
+        chain = mu[None, None, :] + jnp.einsum("scd,ed->sce", chain, W, precision=jax.lax.Precision.HIGHEST)
     if to_z is not None:
         # back to parameter space; report lnp WITHOUT the logit Jacobian
         lnp_chain = lnp_chain - logjac(chain)

@@ -3,7 +3,7 @@
 The reference optionally fits with the Fortran PolyChord sampler
 (``isochrones/starmodel.py:703-715``; path injection via ``config.py:7``),
 whose defining feature vs MultiNest is *slice sampling* of the constrained
-prior (Handley, Hobson & Lasenby 2015). This module is the TPU-native
+prior (Handley, Hobson & Lasenby 2015). This module is the on-device
 counterpart — and, deliberately, an INDEPENDENT constrained-replacement
 implementation from :mod:`.nested`'s adaptive random walk, so the two
 on-device nested samplers cross-check each other's evidences and posteriors
@@ -55,7 +55,7 @@ def _slice_move(lnlike_u, key, x0, lnl_star, L, w0):
     key, k_dir, k_u0 = jax.random.split(key, 3)
     n = jax.random.normal(k_dir, (K, dim), dtype=x0.dtype)
     n = n / jnp.linalg.norm(n, axis=-1, keepdims=True)
-    dvec = n @ L.T  # covariance-whitened direction (PolyChord eq. 11 role)
+    dvec = jnp.matmul(n, L.T, precision=jax.lax.Precision.HIGHEST)  # covariance-whitened direction (PolyChord eq. 11 role)
 
     # initial bracket: [t_lo, t_hi] with x0 interior at random position
     u0 = jax.random.uniform(k_u0, (K,), dtype=x0.dtype)

@@ -5,14 +5,14 @@ Rebuild of ``isochrones/starmodel.py:1361-2127`` (``BasicStarModel``,
 ``IsoTrackModel``, ``N_options``/``index_options``) — the modern flat
 single/binary/triple fitting path.
 
-TPU-first design (vs. the reference's scalar-callback architecture):
+Accelerator-first design (vs. the reference's scalar-callback architecture):
 
 * ``lnprior``/``lnlike``/``lnpost`` compose into ONE pure jitted function
   ``lnpost_batch: (B, n_params) -> (B,)`` — the reference evaluates Python
   prior objects and a scalar numba kernel once per MultiNest/emcee callback
   (starmodel.py:1563-1635); here the full posterior stack (grid gathers, BC
   composition, Gaussian terms, prior change-of-variables) is fused by XLA and
-  vmapped across walkers/live points, so a whole fit runs on-chip.
+  vmapped across walkers/live points, so a whole fit runs on the device.
 * ``fit()`` drives fully on-device samplers (``samplers.nested`` replacing
   MultiNest, ``samplers.ensemble`` replacing emcee) instead of crossing into
   Fortran per evaluation (starmodel.py:717-802).
@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .device import on_accelerator
 from .logger import getLogger
 from .ops.likelihood import gauss_lnprob, star_lnlike
 from .priors import (
@@ -671,10 +672,11 @@ class BasicStarModel:
         across devices (the MPI-rank role in the reference's MultiNest).
         Also accepts ``dynamic=True`` (+ ``min_ess=``) for dynamic nested
         sampling: posterior-focused thread runs that reach a posterior-ESS
-        target in ~6-50x fewer likelihood calls than static extension —
-        a wall-clock wash on TPU for single cheap-likelihood fits, a real
-        win where calls are expensive (cluster marginals, tree models,
-        catalog batches; docs/samplers.md).
+        target in several times fewer likelihood calls than static
+        extension — little wall-clock gain for single cheap-likelihood
+        fits, whose batched calls are nearly free, a real win where calls
+        are expensive (cluster marginals, tree models, catalog batches;
+        docs/samplers.md).
 
         Checkpoint/resume (the role MultiNest's ``chains/*`` files play in
         the reference, starmodel.py:779-797): ``checkpoint=True`` persists
@@ -704,16 +706,15 @@ class BasicStarModel:
             kwargs["checkpoint"] = ckpt
             kwargs.setdefault("config_tag", self._fit_config_hash(seed))
 
-        if jax.default_backend() == "tpu":
+        if on_accelerator():
             # fatten the per-step likelihood fan-out by default: 64 live
             # points replaced per scan step x 16 walk chains each = 1024
             # points/dispatch per run (x n_runs) — 8x the engine default's
-            # 128, cutting sequential scan steps 64-fold. (The chip only
-            # reaches peak throughput near ~16k-point batches; use
-            # n_runs=2 and/or larger n_batch to fill it further.)
-            # Statistically safe at any K: the shrinkage schedule uses the
-            # exact harmonic batched-K increments (_ln_x_schedule; measured
-            # sweep in docs/tpu_design_notes.md).
+            # 128, cutting sequential scan steps 64-fold. An accelerator
+            # fills only with wide batches; use n_runs=2 and/or larger
+            # n_batch to widen further. Statistically safe at any K: the
+            # shrinkage schedule uses the exact harmonic batched-K
+            # increments (_ln_x_schedule).
             kwargs.setdefault("n_batch", 64)
             kwargs.setdefault("n_chains", 16)
         if (
@@ -722,9 +723,9 @@ class BasicStarModel:
             and kwargs.get("n_runs", 1) == 1
         ):
             # expensive-likelihood models (cluster marginals, tree models)
-            # default to dynamic NS: the measured verdict (bench rows 13/14,
-            # docs/samplers.md) is that the ~6x call saving is a wall-clock
-            # wash only when calls are nearly free — here they are not
+            # default to dynamic NS: its call saving is a wall-clock wash
+            # only when calls are nearly free (docs/samplers.md) — here
+            # they are not
             kwargs["dynamic"] = True
         key = jax.random.PRNGKey(seed if seed is not None else 0)
         result = run_nested(
@@ -822,7 +823,7 @@ class BasicStarModel:
         ``run_polychord`` to the shared NS driver)."""
         from .samplers.polychord import run_polychord
 
-        if jax.default_backend() == "tpu":
+        if on_accelerator():
             # same underfill economics as fit_multinest: fatter batched-K
             # replacement per slice step (schedule exact at any K,
             # _ln_x_schedule); slice chains stay at the engine's own default
@@ -866,7 +867,7 @@ class BasicStarModel:
 
         mesh : optional ``jax.sharding.Mesh`` with a ``walkers`` axis — the
         walker batch shards across devices (data-parallel lnpost; the
-        stretch move's complementary-half access becomes an ICI all-gather).
+        stretch move's complementary-half access becomes an all-gather).
         moves : "stretch" (emcee default), "de", "snooker", "kde", or
         "mixed" (KDE/DE/snooker 0.4/0.4/0.2 — the reference emcee3
         harness mixture, fit.py:110-120; better on correlated posteriors).

@@ -111,7 +111,7 @@ class StarModel(BasicStarModel):
     """
 
     #: tree likelihoods are several-fold costlier per call than the fused
-    #: flat model -> dynamic NS by default (VERDICT r4 #8; override with
+    #: flat model -> dynamic NS by default (override with
     #: fit(dynamic=False))
     _default_dynamic = True
 

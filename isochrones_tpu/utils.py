@@ -1,6 +1,6 @@
 """Math / small utilities.
 
-TPU-native rewrite of ``isochrones/utils.py`` (reference file:lines cited per
+JAX rewrite of ``isochrones/utils.py`` (reference file:lines cited per
 function). All jnp functions here are pure, dtype-polymorphic, and safe under
 ``jit``/``vmap``.
 """

@@ -127,6 +127,7 @@ def test_q_jacobian_correction():
         margs[up] = np.asarray(cluster_lnmarginal(
             args[0], args[1], args[2], args[3], jnp.asarray(eeps), args[4], args[5],
             -2.0, 0.3, 0.4, 0.3, 3.0, 0.2, use_pallas=up, q_jacobian=True,
+            interpret=up,
         ))
     np.testing.assert_allclose(margs[True], margs[False], rtol=1e-6)
 
@@ -346,8 +347,8 @@ def test_star_lnmarginals_support_diagnostic(sim):
 
 
 def test_cluster_fit_defaults_to_dynamic(monkeypatch):
-    """StarClusterModel.fit_multinest defaults dynamic=True (VERDICT r4 #8:
-    the cluster marginal is expensive per call — the measured regime where
+    """StarClusterModel.fit_multinest defaults dynamic=True (the cluster
+    marginal is expensive per call — the measured regime where
     dynamic NS's call saving is real wall-clock); explicit dynamic=False
     and n_runs>1 both override."""
     from isochrones_tpu import get_ichrone

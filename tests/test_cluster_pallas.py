@@ -1,12 +1,12 @@
-"""Pallas cluster-kernel parity vs the XLA grid path.
+"""Pallas cluster-kernel parity vs the XLA grid path, and its dispatch.
 
-The fused pallas kernel (ops/cluster_pallas.py) must agree with
+The fused Pallas kernel (ops/cluster_pallas.py) must agree with
 ``log(integrate_over_eeps(calc_lnlike_grid(...)))`` — which is itself
 parity-tested against the numpy loop oracle of the reference's
 ``cluster_utils.py`` kernels in test_cluster.py — on randomized inputs,
 adversarial masks, and under vmap. Runs in interpret mode on CPU; the
-same kernel compiles natively on TPU (exercised by bench.py and the
-cluster fit path there).
+same kernel compiled for the card is checked by tests/test_gpu_device.py
+and chip_smoke.py.
 """
 
 import jax
@@ -18,9 +18,11 @@ from isochrones_tpu.ops.cluster import (
     calc_lnlike_grid,
     cluster_lnmarginal,
     integrate_over_eeps,
+    kernel_path,
 )
 from isochrones_tpu.ops.cluster_pallas import (
     cluster_lnmarginal_pallas,
+    plan_tiles,
     trapezoid_weights,
 )
 
@@ -74,24 +76,28 @@ def test_trapezoid_weights_identity():
     np.testing.assert_allclose(got, ref, rtol=1e-12)
 
 
+@pytest.mark.parametrize("tile_s", [1, 4])
 @pytest.mark.parametrize("seed,S,E,B", [(0, 7, 50, 4), (1, 3, 130, 2), (2, 9, 64, 6)])
-def test_pallas_parity_randomized(seed, S, E, B):
+def test_pallas_parity_randomized(seed, S, E, B, tile_s):
+    """tile_s=4 is the star tile the planner picks at production sizes;
+    star counts that are not a multiple of it pad the last block with
+    -1e30 ghost rows, which must not leak into the real stars."""
     kw = _fixture(seed, S=S, E=E, B=B)
     ref = _xla_ref(kw)
     got = np.asarray(
-        cluster_lnmarginal_pallas(**kw, interpret=True, tile_j=16)
+        cluster_lnmarginal_pallas(**kw, interpret=True, tile_s=tile_s, tile_j=16)
     )
+    assert got.shape == (S,)
     m = np.isfinite(ref)
     np.testing.assert_allclose(got[m], ref[m], rtol=1e-8)
     assert np.array_equal(np.isfinite(got), m)
 
 
-@pytest.mark.parametrize("tile_k", [16, 32, 48])
+@pytest.mark.parametrize("tile_k", [8, 16, 32])
 def test_pallas_parity_k_tiled(tile_k):
-    """k-axis tiling (the bounded-VMEM path the real 1710-EEP ladder takes
-    on chip) must stream the same logsumexp: tile widths that divide E
-    unevenly, straddle the mask, and force >=3 k-tiles all agree with the
-    XLA grid path."""
+    """The in-kernel k loop must stream the same logsumexp: tile widths
+    that divide E unevenly, straddle the mask and the diagonal, and force
+    >=3 k tiles all agree with the XLA grid path."""
     kw = _fixture(4, S=6, E=70, B=3)
     ref = _xla_ref(kw)
     got = np.asarray(
@@ -102,34 +108,47 @@ def test_pallas_parity_k_tiled(tile_k):
     assert np.array_equal(np.isfinite(got), m)
 
 
-def test_pallas_auto_tile_k_splits_real_ladder():
-    """The PRODUCTION auto-tile planner (the one the kernel wrapper calls)
-    must split k at the real MIST ladder (1710 -> two 896-wide tiles under
-    the measured ~100 B/cell scope) and keep the known-good 800-EEP
-    configuration on a single tile."""
-    from isochrones_tpu.ops.cluster_pallas import _VMEM_CELL_BUDGET, _plan_k_tiles
+@pytest.mark.parametrize("n_eep,n_stars,n_bands", [
+    (800, 50, 3), (1710, 50, 3), (1710, 50, 8), (50, 7, 4), (6840, 3, 2),
+])
+def test_tile_planner(n_eep, n_stars, n_bands):
+    """The production planner (the one the kernel wrapper calls) gives
+    power-of-two tiles whose live tiles fit the register budget, and at
+    the bench's 50 stars launches at least two blocks per SM of an H100
+    for a single walker."""
+    from isochrones_tpu.ops.cluster_pallas import _N_SM, _TILE_ELEMS_BUDGET
 
-    assert _plan_k_tiles(1710, 128) == (2, 896)
-    assert _plan_k_tiles(800, 128) == (1, 896)
-    assert _plan_k_tiles(50, 128) == (1, 128)
-    # scoped cells stay under budget for any ladder up to 4x real MIST
-    for E in (50, 800, 1710, 3000, 6840):
-        nkb, TK = _plan_k_tiles(E, 128)
-        assert 128 * TK <= max(_VMEM_CELL_BUDGET, 128 * 128)
-        assert TK * nkb >= E
+    ts, tj, tk = plan_tiles(n_eep, n_stars, n_bands)
+    for t in (ts, tj, tk):
+        assert t >= 1 and t & (t - 1) == 0
+    assert tj * tk * (n_bands + 4) <= _TILE_ELEMS_BUDGET
+    n_blocks = -(-n_stars // ts) * -(-n_eep // tj)
+    if n_stars == 50:
+        assert n_blocks >= 2 * _N_SM
+        assert ts == 4  # the measured-best star tile at the bench shapes
 
 
-def test_pallas_parity_inf_lnprop_and_all_invalid_star():
+def test_kernel_rejects_non_pow2_tiles():
+    kw = _fixture(0, S=3, E=40, B=3)
+    with pytest.raises(ValueError, match="power of two"):
+        cluster_lnmarginal_pallas(**kw, interpret=True, tile_j=24)
+
+
+@pytest.mark.parametrize("tile_s", [1, 4])
+def test_pallas_parity_inf_lnprop_and_all_invalid_star(tile_s):
     """-inf / nan property likelihoods and a star with no valid support
-    must not poison neighbors; the dead star's marginal is -inf."""
-    kw = _fixture(5, S=4, E=40, B=3)
+    must not poison neighbors (in the same star tile too, and with ghost
+    stars padding it); the dead star's marginal is -inf."""
+    kw = _fixture(5, S=6, E=40, B=3)
     lnprop = np.array(kw["lnlike_prop"])
     lnprop[0, 3] = -np.inf
     lnprop[1, :] = np.nan
     lnprop[2, :] = -np.inf  # star with zero marginal likelihood
     kw["lnlike_prop"] = jnp.asarray(lnprop)
     ref = _xla_ref(kw)
-    got = np.asarray(cluster_lnmarginal_pallas(**kw, interpret=True, tile_j=16))
+    got = np.asarray(
+        cluster_lnmarginal_pallas(**kw, interpret=True, tile_s=tile_s, tile_j=16)
+    )
     m = np.isfinite(ref)
     assert not m[2] and not np.isfinite(got[2])
     np.testing.assert_allclose(got[m], ref[m], rtol=1e-8)
@@ -203,23 +222,46 @@ def test_dispatcher_cpu_uses_xla_path():
 
 
 def test_dispatcher_forced_pallas_matches():
+    """``use_pallas=True, interpret=True`` runs the kernel in interpret
+    mode through the dispatcher."""
     kw = _fixture(13, S=6, E=45, B=3)
     ref = _xla_ref(kw)
-    got = np.asarray(cluster_lnmarginal(**kw, use_pallas=True))
+    got = np.asarray(cluster_lnmarginal(**kw, use_pallas=True, interpret=True))
     m = np.isfinite(ref)
     np.testing.assert_allclose(got[m], ref[m], rtol=1e-8)
 
 
-def test_dispatcher_f64_on_tpu_falls_back_to_xla(monkeypatch):
-    """A TPU backend with x64 enabled must take the XLA grid path: Mosaic
-    lowers only 32-bit scalar element types, so the compiled pallas kernel
-    would die with an opaque lowering error. (Backend is faked; if the gate
-    regresses, pallas compiles for the claimed-'tpu' target and this test
-    errors rather than mismatching.)"""
-    kw = _fixture(17)
-    assert kw["model_mags"].dtype == jnp.float64  # x64 forced by conftest
-    ref = _xla_ref(kw)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    got = np.asarray(cluster_lnmarginal(**kw))
-    m = np.isfinite(ref)
-    np.testing.assert_allclose(got[m], ref[m], rtol=1e-10)
+def test_dispatcher_forced_without_interpret_on_cpu_raises():
+    """Forcing the compiled kernel where there is no GPU is an error, never
+    a silent interpret-mode run."""
+    kw = _fixture(13, S=6, E=45, B=3)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        cluster_lnmarginal(**kw, use_pallas=True)
+
+
+@pytest.mark.parametrize("dtype,use_pallas,interpret,expect", [
+    (jnp.float32, None, False, True),  # the GPU's default: compiled kernel
+    (jnp.float64, None, False, False),  # float64: the XLA grid path
+    (jnp.float32, False, False, False),  # explicit XLA grid path
+    (jnp.float32, True, False, True),  # forced compiled kernel
+    (jnp.float64, None, True, True),  # interpret mode, any dtype
+])
+def test_dispatcher_gpu_choice(monkeypatch, dtype, use_pallas, interpret, expect):
+    """The path the dispatcher picks on a GPU (backend faked), per dtype
+    and option."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert kernel_path(dtype, use_pallas, interpret) is expect
+
+
+def test_dispatcher_f64_forced_on_gpu_raises(monkeypatch):
+    """The compiled kernel is float32 only: forcing it on float64 inputs
+    raises instead of falling back with a warning."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    with pytest.raises(ValueError, match="float32 only"):
+        kernel_path(jnp.float64, True)
+
+
+def test_dispatcher_cpu_choice():
+    """On the CPU the dispatcher never picks the compiled kernel."""
+    assert kernel_path(jnp.float32) is False
+    assert kernel_path(jnp.float64) is False

@@ -159,7 +159,7 @@ def test_eep_step_resolves_single_peaks(iso):
 @pytest.mark.slow
 def test_cluster_nested_fit_dynamic_default_recovers(iso, monkeypatch):
     """The NS driver path (`model.fit()` -> fit_multinest), which now
-    defaults to DYNAMIC nested sampling for cluster models (VERDICT r4 #8),
+    defaults to DYNAMIC nested sampling for cluster models,
     recovers the simulation truth: the central 95% interval brackets every
     identifiable shared parameter, and the result really ran the dynamic
     machinery."""

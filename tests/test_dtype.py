@@ -1,6 +1,6 @@
 """f32/f64 tolerance guardrail (SURVEY §7 "fp precision" hard part).
 
-The shipped TPU configuration stores grids in float32 (bench.py, config.py
+The shipped accelerator configuration stores grids in float32 (bench.py, config.py
 DEFAULT_DTYPE) while the reference — and the round-1 test suite — is float64
 throughout. These tests certify the dtype the benchmark ships: f32 grids must
 give lnpost within absolute tolerance of f64 on MIST-scale synthetic grids,
@@ -108,7 +108,7 @@ def test_binary_lnpost_f32_close_to_f64(iso_pair):
 @pytest.mark.slow
 def test_fit_posterior_f32_matches_f64(iso_pair):
     """Posterior quantiles from an f32-grid fit match the f64-grid fit within
-    Monte-Carlo error — the dtype the TPU benchmark ships is certified at the
+    Monte-Carlo error — the dtype the accelerator benchmark ships is certified at the
     posterior level, not just pointwise lnpost."""
     iso64, iso32 = iso_pair
     m64 = _model(iso64)

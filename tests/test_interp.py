@@ -167,8 +167,7 @@ def test_npz_cache_roundtrip(tmp_path):
 
 class TestBlockGatherParity:
     """The block-gather path (one lax.gather of the (2,)*ndim corner
-    neighborhood per point — the TPU default; docs/tpu_design_notes.md
-    roofline section) must be BITWISE identical to the row-gather path,
+    neighborhood per point, an opt-in alternative) must be BITWISE identical to the row-gather path,
     which is itself oracle-pinned (tests/test_oracle_parity.py): NaN holes,
     weight-0 poisoning, exact interior knots, the top-knot clamp, OOB."""
 
@@ -197,7 +196,7 @@ class TestBlockGatherParity:
         # identical NaN pattern (holes/OOB/weight-0 poisoning semantics);
         # values agree to contraction-order rounding (the block path lerps
         # per-dim sequentially; the row path sums weight products — a
-        # ~1e-15 relative difference, far below f32 resolution on TPU)
+        # ~1e-15 relative difference, far below f32 resolution)
         np.testing.assert_array_equal(np.isnan(row), np.isnan(blk))
         m = np.isfinite(row)
         np.testing.assert_allclose(blk[m], row[m], rtol=1e-12, atol=1e-14)
@@ -224,8 +223,8 @@ class TestBlockGatherParity:
 
 class TestPairedGatherParity:
     """The EEP-paired gather path (pair_innermost_columns + paired=True —
-    what the packed hot-kernel tables use; halves gather count on TPU,
-    docs/tpu_design_notes.md roofline section) must match the row path:
+    an opt-in for the packed hot-kernel tables that halves the gather
+    count) must match the row path:
     NaN pattern exactly, values to fp-association rounding."""
 
     @pytest.mark.parametrize("ndim", [2, 3, 4])

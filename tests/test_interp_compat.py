@@ -4,7 +4,7 @@ transliteration oracle of the reference's numba kernels.
 The compat module exposes the reference's public names
 (``/root/reference/isochrones/interp.py``: searchsorted, find_indices_*,
 interp_value(s)_*, interp_eep(s), find_closest3, DFInterpolator) as thin
-wrappers over the TPU ops; every wrapper must agree with the transliterated
+wrappers over the device ops; every wrapper must agree with the transliterated
 loop oracle (tests/reference_oracle.py) on randomized + adversarial inputs.
 """
 

@@ -191,8 +191,7 @@ def test_call_dataframe(track):
 
 
 def test_pair_grids_opt_in_parity(monkeypatch):
-    """ISOTPU_PAIR_GRIDS=1 (the forward-only +6% gather option,
-    docs/tpu_design_notes.md roofline section) must build paired packed
+    """ISOTPU_PAIR_GRIDS=1 (the paired-gather option) must build paired packed
     tables that produce the same lnpost surface as the default unpaired
     build (values to fp-association rounding; identical -inf pattern)."""
     import numpy as np

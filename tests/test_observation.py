@@ -292,7 +292,7 @@ def test_tree_model_fit_smoke(iso):
 @pytest.mark.slow
 def test_tree_model_nested_fit_dynamic_default_recovers(iso, monkeypatch):
     """Tree StarModel.fit_multinest defaults to DYNAMIC nested sampling
-    (VERDICT r4 #8: tree likelihoods are expensive per call) and recovers
+    (tree likelihoods are expensive per call) and recovers
     the generating star within the posterior's central 95%."""
     import isochrones_tpu.samplers.nested as nested
 

@@ -50,7 +50,7 @@ def test_sharded_fit_mcmc_matches_unsharded(model):
 def test_sharded_nested_multirun_matches_unsharded(model):
     """Flagship engine on a mesh: independent NS runs shard over devices
     with zero communication, so same seeds -> bitwise-identical dead-point
-    sequences, samples, and evidence (VERDICT r2 missing #2)."""
+    sequences, samples, and evidence."""
     mesh = default_mesh(8, axis_names=("runs",))
     kw = dict(n_live_points=32, max_iter=128, seed=5, n_runs=8, min_ess=0, dlogz=1.0)
     r_plain = model.fit_multinest(**kw)

@@ -11,7 +11,7 @@ This exercises the exact acceptance bar of SURVEY §7 stage 6 (posterior
 correctness, reference starmodel.py:717-802) as a *distributional* property
 over many fits, not a single-fixture quantile check. The whole M-dataset
 ensemble fits in ONE vmapped nested-sampling program (BatchStarFitter),
-which is the TPU-native reason this test is affordable at all.
+which is the reason this test is affordable at all.
 """
 
 import numpy as np

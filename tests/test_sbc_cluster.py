@@ -9,7 +9,7 @@ Gaussian photometric + parallax noise), fit every dataset, and rank each
 truth within its posterior samples — uniform ranks iff prior, forward
 model, marginal likelihood, and sampler are jointly self-consistent.
 
-TPU-native mechanics: all M fits run as ONE vmapped nested-sampling
+Mechanics: all M fits run as ONE vmapped nested-sampling
 program (samplers/nested.py::run_nested_vmapped) over the
 dataset-parametric cluster likelihood
 (StarClusterModel._build_lnlike_dataset) — the observations are function

@@ -274,11 +274,11 @@ def test_load_hdf_syncs_prior_bounds(tmp_path, iso):
     assert np.isfinite(m2.lnprior(np.asarray(p[0])))
 
 
-def test_fit_multinest_tpu_default_batching(iso, monkeypatch):
-    """On a TPU backend, fit_multinest defaults to the tuned batched-K
-    walk config (n_batch=64, n_chains=16 — the chip runs at ~15% of peak
-    below a ~2k-point fan-out per step; docs/tpu_design_notes.md), while
-    explicit kwargs always win. CPU backends keep the engine defaults."""
+def test_fit_multinest_gpu_default_batching(iso, monkeypatch):
+    """On a GPU backend, fit_multinest defaults to the batched-K walk
+    config (n_batch=64, n_chains=16: a wide likelihood fan-out per step),
+    while explicit kwargs always win. CPU backends keep the engine
+    defaults."""
     import jax
 
     t = _true_star(iso)
@@ -296,7 +296,7 @@ def test_fit_multinest_tpu_default_batching(iso, monkeypatch):
     from isochrones_tpu.samplers import nested as nested_mod
 
     monkeypatch.setattr(nested_mod, "run_nested", fake_run_nested)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     with pytest.raises(_Stop):
         m.fit_multinest(n_live_points=100, seed=0)
     assert seen["n_batch"] == 64 and seen["n_chains"] == 16
